@@ -5,7 +5,7 @@ sequences are low-quality and deferred to the task-1 realign pass — this
 exercises fallback_to_deferred, the reference's unstable std::sort order
 (helpers.sort_fallback via native std::sort) and the one-pair-per-level
 realign schedule. The md5 is pinned to the canonical reference build's
-output (verified byte-identical on native and tpu backends)."""
+output (verified byte-identical on the native and device backends)."""
 import hashlib
 import os
 import sys
@@ -61,11 +61,10 @@ def test_deferred_realign_2k_pooled(tmp_path, monkeypatch):
 
 @pytest.mark.slow
 def test_escalation_ladder_hbm_tb_e2e(tmp_path):
-    """Window-escalation ladder through the REAL batcher up to the
-    hbm_tb wide-window kernels: divergent pairs + TWILIGHT_INIT_WINDOW=128
-    force err-6 relaunches past FLEN 1024 (verified reaching window=2048
-    = the HBM-traceback grouped kernel); output must be byte-identical
-    to the NumPy oracle run."""
+    """Window-escalation ladder through the REAL batcher up to the wide
+    windows: divergent pairs + TWILIGHT_INIT_WINDOW=128 force err-6
+    relaunches past FLEN 1024 (verified reaching window=2048); output
+    must be byte-identical to the NumPy oracle run."""
     import subprocess
     sim = tmp_path / "div8"
     env = dict(os.environ)
@@ -79,15 +78,16 @@ def test_escalation_ladder_hbm_tb_e2e(tmp_path):
          "-i", f"{sim}.fa", "-o", str(out_np), "--backend", "numpy"],
         cwd=REPO, check=True, capture_output=True, env=env, timeout=900)
     out_dev = tmp_path / "dev.aln"
-    env.update(TWILIGHT_JAX_PLATFORM="cpu", TWILIGHT_FORCE_DEVICE="1",
+    env.update(JAX_PLATFORMS="cpu", TWILIGHT_FORCE_DEVICE="1",
                TWILIGHT_INIT_WINDOW="128", TWILIGHT_NO_STEAL="1",
                TWILIGHT_PROFILE="1")
     r = subprocess.run(
         [sys.executable, "-m", "twilight_tpu", "-t", f"{sim}.nwk",
-         "-i", f"{sim}.fa", "-o", str(out_dev), "--backend", "cpu"],
+         "-i", f"{sim}.fa", "-o", str(out_dev), "--backend", "cpu",
+         "--pair-batch", "8"],
         cwd=REPO, capture_output=True, env=env, timeout=3000)
     assert r.returncode == 0, r.stderr.decode()[-2000:]
     prof = r.stderr.decode()
     assert "window=2048" in prof, \
-        "escalation never reached the hbm_tb range:\n" + prof[-1500:]
+        "escalation never reached window 2048:\n" + prof[-1500:]
     assert out_dev.read_bytes() == out_np.read_bytes()

@@ -55,7 +55,7 @@ def test_device_selection_builds_blocking():
 def test_lazy_cutover_e2e(tmp_path, monkeypatch):
     """--backend auto end-to-end with the lazy kernel: levels aligned
     before the batcher finishes building run on the host, later levels
-    on the (interpret-mode) device — bytes must equal the oracle run."""
+    on the (CPU-backend) device — bytes must equal the oracle run."""
     import subprocess
     import sys
 

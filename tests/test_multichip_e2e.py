@@ -2,9 +2,9 @@
 
 Runs cli.main with --backend cpu under the conftest's 8 virtual CPU
 devices: DeviceTalco builds an 8-device "pairs" mesh and launches the
-grouped Pallas kernel under shard_map in interpret mode (same kernel
-code that runs on TPU; interpret is bit-identical). The output must be
-byte-identical to the NumPy-oracle run — certifying the sharded
+XLA-compiled batch kernel (ops/talco_jax.py) under shard_map — the same
+batcher and mesh code that shards the CUDA kernel over GPUs. The output
+must be byte-identical to the NumPy-oracle run — certifying the sharded
 production path end-to-end, not a demo kernel (reference analogue:
 multi-GPU batch stealing, cuda/alignment-gpu.cu:231-252).
 """

@@ -2,17 +2,16 @@
 
 Validates that the shard_map-wrapped batch kernel produces bit-identical
 paths to the NumPy oracle when a level's pair batch is sharded over the
-mesh's "pairs" axis (the TPU-native replacement for the reference's
+mesh's "pairs" axis (the SPMD form of the reference's
 per-GPU batch stealing, cuda/alignment-gpu.cu:231-252)."""
 import numpy as np
 
 import jax
 
-from twilight_tpu.ops import talco_jax
 from twilight_tpu.parallel import sharding
 
 from conftest import random_profile_pair
-from test_talco_kernel import GE, GO, nuc_matrix, run_oracle
+from test_talco_kernel import nuc_matrix, pack_jax_batch, run_oracle
 
 
 def test_virtual_mesh_has_8_devices():
@@ -29,31 +28,10 @@ def test_sharded_kernel_matches_oracle(rng):
     pairs = [random_profile_pair(rng, r, q) for r, q in cases]
     b = sharding.pad_batch_to_mesh(len(pairs), mesh)
     assert b == 8
-    tot = flen + padlen + flen
-    rr = np.zeros((b, tot, 6), np.float32)
-    qq = np.zeros((b, tot, 6), np.float32)
-    gor = np.zeros((b, tot), np.float32)
-    goq = np.zeros((b, tot), np.float32)
-    ger = np.zeros((b, tot), np.float32)
-    geq = np.zeros((b, tot), np.float32)
-    rl = np.ones(b, np.int32)
-    ql = np.ones(b, np.int32)
-    for i, (fr, fq) in enumerate(pairs):
-        go = (np.full(fr.shape[0], GO, np.float32),
-              np.full(fq.shape[0], GO, np.float32))
-        ge = (np.full(fr.shape[0], GE, np.float32),
-              np.full(fq.shape[0], GE, np.float32))
-        rr[i], qq[i], gor[i], goq[i], ger[i], geq[i] = talco_jax.pack_pair(
-            fr, fq, go, ge, padlen, flen)
-        rl[i], ql[i] = fr.shape[0], fq.shape[0]
-    ones = np.ones(b, np.float32)
-    out, lens, errs = kern(
-        rr, qq, gor, goq, ger, geq, rl, ql, ones, ones,
-        np.full(b, 4096, np.int32), np.full(b, 5000, np.int32),
-        np.full(b, GE, np.float32), np.float32(GO), np.float32(GE))
-    out = np.asarray(out)
+    out, tail = kern(*pack_jax_batch(pairs, padlen, flen))
+    out, tail = np.asarray(out), np.asarray(tail)
     for i, (fr, fq) in enumerate(pairs):
         gold, gerr = run_oracle(fr, fq)
-        assert int(errs[i]) == gerr == 0
-        assert int(lens[i]) == len(gold)
+        assert int(tail[i, 1]) == gerr == 0
+        assert int(tail[i, 0]) == len(gold)
         np.testing.assert_array_equal(out[i, :len(gold)], gold)

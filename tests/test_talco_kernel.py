@@ -41,35 +41,40 @@ def run_oracle(fr, fq, marker=1024, flen=4096, xdrop=5000, gap_char=GE):
     return talco_np.align_freq(tp, fr, fq, gap_op, gap_ex, (1.0, 1.0))
 
 
-def run_jax(pairs, padlen, flen, marker=1024, xdrop=5000, gap_char=GE,
-            flen_param=4096):
-    m = nuc_matrix()
-    kern = talco_jax.get_batch_kernel(padlen, flen, 6, marker,
-                                      m.tobytes(), 6)
+def pack_jax_batch(pairs, padlen, flen, nums=None, xdrop=5000,
+                   gap_char=GE, flen_param=4096):
+    """(ref, qry, meta_i, meta_f) in talco_jax's packed layout."""
     b = len(pairs)
+    p = pairs[0][0].shape[1]
+    p8 = talco_jax.p8_of(p)
     tot = flen + padlen + flen
-    rr = np.zeros((b, tot, 6), np.float32)
-    qq = np.zeros((b, tot, 6), np.float32)
-    gor = np.zeros((b, tot), np.float32)
-    goq = np.zeros((b, tot), np.float32)
-    ger = np.zeros((b, tot), np.float32)
-    geq = np.zeros((b, tot), np.float32)
-    rl = np.zeros(b, np.int32)
-    ql = np.zeros(b, np.int32)
+    ref = np.zeros((b, tot, p8), np.float32)
+    qry = np.zeros((b, tot, p8), np.float32)
+    meta_i = np.zeros((b, 4), np.int32)
+    meta_f = np.zeros((b, 5), np.float32)
     for i, (fr, fq) in enumerate(pairs):
         go = (np.full(fr.shape[0], GO, np.float32),
               np.full(fq.shape[0], GO, np.float32))
         ge = (np.full(fr.shape[0], GE, np.float32),
               np.full(fq.shape[0], GE, np.float32))
-        rr[i], qq[i], gor[i], goq[i], ger[i], geq[i] = talco_jax.pack_pair(
-            fr, fq, go, ge, padlen, flen)
-        rl[i], ql[i] = fr.shape[0], fq.shape[0]
-    ones = np.ones(b, np.float32)
-    out_buf, out_len, err = kern(
-        rr, qq, gor, goq, ger, geq, rl, ql, ones, ones,
-        np.full(b, flen_param, np.int32), np.full(b, xdrop, np.int32),
-        np.full(b, gap_char, np.float32), np.float32(GO), np.float32(GE))
-    return (np.asarray(out_buf), np.asarray(out_len), np.asarray(err))
+        talco_jax.pack_pair_into(ref[i], qry[i], fr, fq, go, ge, padlen,
+                                 flen)
+        rn, qn = nums[i] if nums is not None else (1.0, 1.0)
+        meta_i[i] = (fr.shape[0], fq.shape[0], flen_param, xdrop)
+        meta_f[i] = (rn, qn, gap_char, GO, GE)
+    return ref, qry, meta_i, meta_f
+
+
+def run_jax(pairs, padlen, flen, marker=1024, xdrop=5000, gap_char=GE,
+            flen_param=4096):
+    m = nuc_matrix()
+    kern = talco_jax.get_batch_kernel(padlen, flen, 6, marker,
+                                      m.tobytes(), 6)
+    out_buf, tail = kern(*pack_jax_batch(pairs, padlen, flen, xdrop=xdrop,
+                                         gap_char=gap_char,
+                                         flen_param=flen_param))
+    tail = np.asarray(tail)
+    return np.asarray(out_buf), tail[:, 0], tail[:, 1]
 
 
 def path_consumes(path, rl, ql):
@@ -123,16 +128,11 @@ def test_jax_profile_pairs_match(rng):
 
     kern = talco_jax.get_batch_kernel(256, 256, 6, 1024,
                                       nuc_matrix().tobytes(), 6)
-    rr, qq, gor, goq, ger, geq = talco_jax.pack_pair(
-        fr, fq1, gap_op, gap_ex, 256, 256)
-    out, ln, err = kern(
-        rr[None], qq[None], gor[None], goq[None], ger[None], geq[None],
-        np.array([150], np.int32), np.array([150], np.int32),
-        np.array([2.0], np.float32), np.array([1.0], np.float32),
-        np.array([4096], np.int32), np.array([5000], np.int32),
-        np.array([GE], np.float32), np.float32(GO), np.float32(GE))
-    assert int(err[0]) == 0
-    assert int(ln[0]) == len(gold)
+    out, tail = kern(*pack_jax_batch([(fr, fq1)], 256, 256,
+                                     nums=[(2.0, 1.0)]))
+    tail = np.asarray(tail)
+    assert int(tail[0, 1]) == 0
+    assert int(tail[0, 0]) == len(gold)
     np.testing.assert_array_equal(np.asarray(out)[0, :len(gold)], gold)
 
 

@@ -1,2 +1,2 @@
-"""TWILIGHT-TPU: TPU-native multiple sequence alignment engine."""
+"""TWILIGHT-TPU: GPU-accelerated multiple sequence alignment engine."""
 __version__ = "0.1.0"

@@ -2,7 +2,7 @@
 
 Mirrors the reference's Option (/root/reference/src/option.cpp:12-251) and
 Params (/root/reference/src/scoring-matrix.cpp:81-236) semantics, restructured
-as plain dataclasses for the TPU-native engine.
+as plain dataclasses.
 """
 from __future__ import annotations
 
@@ -54,9 +54,9 @@ class Options:
     n_hosts: int = 1                 # multi-host subtree dispatch
     host_id: int = 0
     keep_temp: bool = False
-    # TPU execution knobs (no reference analogue)
-    device_backend: str = "auto"     # auto | tpu | cpu | numpy
-    pair_batch: int = 128            # pairs per device launch (per chip)
+    # device execution knobs (no reference analogue)
+    device_backend: str = "auto"     # auto | gpu | cpu | native | numpy
+    pair_batch: int = 1024           # most pairs per launch (per device)
     cpu_num: int = 0                 # host DP worker threads (0 = all cores)
     # device selection (reference GPU build: --gpu/--gpu-index,
     # cuda/gpu-info.cu:14-61); None = all local devices

@@ -987,8 +987,8 @@ int tile(const float* freq_ref, long ref_total,
                 // so the three full-band scans — which CANNOT early-exit
                 // here, all values being equal — are skipped wholesale.
                 // Exactly equivalent: convergence cannot fire and
-                // prev_conv_s would be set to -1. (Same phase split as
-                // the Pallas kernel's with_conv=False pre-marker loop.)
+                // prev_conv_s would be set to -1. (The CUDA kernel skips
+                // the same pre-marker reductions.)
                 prev_conv_s = -1;
             } else {
                 const int start = (int)(new_l - Lk);
@@ -1153,10 +1153,8 @@ int64_t talco_align_freq(
     // P*P lookup. The table is built THROUGH similarity() itself on
     // synthetic pure columns (same op order, same division by this
     // call's denominator), making the shortcut provably bit-exact;
-    // impure columns get code -1 and fall back to the full sum — the
-    // host analogue of the device's int-code leaf kernel
-    // (../ops/talco_pallas_g8.py leaf mode), generalized to internal
-    // profiles' conserved columns.
+    // impure columns get code -1 and fall back to the full sum; it
+    // covers leaf pairs and internal profiles' conserved columns.
     std::vector<int32_t> refC, qryC;
     std::vector<float> simtab;
     if (P == 6 || P == 22) {

@@ -1,12 +1,11 @@
-"""Bit-exact float32 primitives for TPU kernels.
+"""Bit-exact float32 primitives for the JAX kernels.
 
-TPU f32 division lowers to a reciprocal-multiply approximation (observed
-~1e-6 relative error, e.g. 126/7 -> 18.000004 inside Pallas), which breaks
-the byte-identical-output contract — a ~30-ulp similarity error is enough
-to flip an alignment tie. `exact_div32` implements correctly-rounded f32
-division via a Markstein refinement with a Dekker two-product standing in
-for the (unexposed) hardware FMA. Fuzz-verified bit-equal to IEEE division
-on TPU across magnitude ranges 1e-9..1e8 (tests + /tmp fuzz harness).
+Some accelerator backends lower f32 division to a reciprocal-multiply
+approximation (~1e-6 relative error), which breaks the byte-identical-output
+contract — a ~30-ulp similarity error is enough to flip an alignment tie.
+`exact_div32` implements correctly-rounded f32 division via a Markstein
+refinement with a Dekker two-product standing in for a hardware FMA, so the
+result does not depend on how the backend divides (tests/test_fastmath.py).
 """
 from __future__ import annotations
 

@@ -3,7 +3,7 @@
 Same call surface as talco_np.align_freq; the shared library
 (native/talco.cpp) reproduces the oracle's float32 semantics exactly and is
 ~10-50x faster, making it the preferred host path (narrow levels, fallback
-ladder) while wide levels run on the TPU kernel. Falls back to None when no
+ladder) while wide levels run on the GPU kernel. Falls back to None when no
 toolchain is available; callers then use the NumPy oracle.
 """
 from __future__ import annotations

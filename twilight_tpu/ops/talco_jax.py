@@ -1,25 +1,33 @@
-"""TALCO-XDrop profile-profile alignment — batched JAX device kernel.
+"""TALCO-XDrop profile-profile alignment — batched JAX kernel.
 
-TPU-first redesign of the reference DP (/root/reference/src/TALCO-XDrop.cpp,
-cuda/device-function.cu): one jitted program runs a BATCH of pair alignments
-(vmapped), each as a tiled anti-diagonal wavefront held entirely on device —
-band buffers as [FLEN]-lane vectors (VPU), the whole multi-tile loop and the
-sequential traceback inside `lax.while_loop`, one host↔device round trip per
-launch (the CUDA kernel's shape, reference alignment-gpu.cu:182-450).
+The plain version of the DP: one jitted program runs a BATCH of pair
+alignments (vmapped), each as a tiled anti-diagonal wavefront held
+entirely in the program — band buffers as [FLEN]-lane vectors, the whole
+multi-tile loop and the sequential traceback inside `lax.while_loop`.
+XLA compiles it for any backend; the `cpu` backend and the CPU tests run
+it, and it is the reference the GPU kernel (ops/talco_cuda.cu) is timed
+and checked against.
 
 Float32 operation order matches the NumPy oracle (ops/talco_np.py), which
 matches the reference binary — identical alignment paths on identical inputs
 (exact on IEEE backends; validated against the oracle in tests).
 
-Layout per pair (prepared host-side, see pack_pair):
-  qry_pad     [FLEN + PADLEN + FLEN, P] f32   query profile, zero-padded
-  ref_rev_pad [FLEN + PADLEN + FLEN, P] f32   REVERSED reference profile
-  gap arrays  [FLEN + PADLEN + FLEN] f32 × 4  (ref-side ones reversed too)
-so every anti-diagonal's cell inputs are contiguous dynamic slices — no
-gathers for profiles on the hot path.
+Packed pair layout, shared by every device route (pack_pair_into):
+  ref [TOT, P8] f32  REVERSED reference profile at rows
+                     [off + PADLEN - ref_len, off + PADLEN)
+  qry [TOT, P8] f32  query profile at rows [off, off + qry_len)
+P8 = P rounded up to 8 (6 -> 8, 22 -> 24); the position-specific gap open
+and extend penalties ride in columns P8-2 and P8-1. Here off = FLEN and
+TOT = FLEN + PADLEN + FLEN, so every anti-diagonal's cell inputs are
+contiguous FLEN-row dynamic slices — no gathers on the hot path.
+Per-pair scalars: meta_i [4] i32 = ref_len, qry_len, flen (ladder), xdrop;
+meta_f [5] f32 = ref_num, qry_num, gap_char, gap_open, gap_extend.
+Output per pair: path [MAXALN] i8 and tail [3] i32 = len, err, cells (the
+live-band cells the DP computed).
 
 Error codes: 0 ok, 1 x-drop band collapse, 2 band exceeded fLen, 3 index
-error, 4 boundary-sentinel convergence (host falls back to the oracle).
+error, 4 boundary-sentinel convergence (host falls back to the oracle), 6
+live band exceeded the static FLEN window (host escalates to a wider one).
 """
 from __future__ import annotations
 
@@ -89,12 +97,9 @@ def _make_pair_fn(PADLEN: int, FLEN: int, P: int, MARKER: int,
                   matrix: np.ndarray):
     """Build the single-pair alignment function for a static shape config.
 
-    Args of the returned fn (all jnp, per pair):
-      ref_rev_pad [TOT, P], qry_pad [TOT, P],
-      gor_rev, goq, ger_rev, geq [TOT],
-      ref_len, qry_len i32, ref_num, qry_num f32,
-      flen_param, xdrop i32, gap_char, gap_open, gap_extend f32
-    Returns (out_buf [MAXALN] i8, out_len i32, err i32).
+    Args of the returned fn (per pair): ref [TOT, P8], qry [TOT, P8],
+    meta_i [4] i32, meta_f [5] f32 (module docstring).
+    Returns (out_buf [MAXALN] i8, tail [3] i32 = len, err, cells).
     """
     SEG_MAX = 2 * MARKER + 8
     MAXALN = 2 * PADLEN + 8
@@ -103,9 +108,13 @@ def _make_pair_fn(PADLEN: int, FLEN: int, P: int, MARKER: int,
     lane_seg = jnp.arange(SEG_MAX, dtype=jnp.int32)
     lane_out = jnp.arange(MAXALN, dtype=jnp.int32)
 
-    def align_pair(ref_rev_pad, qry_pad, gor_rev, goq, ger_rev, geq,
-                   ref_len, qry_len, ref_num, qry_num, flen_param, xdrop,
-                   gap_char, gap_open, gap_extend):
+    P8 = p8_of(P)
+
+    def align_pair(ref_pad, qry_pad, meta_i, meta_f):
+        ref_len, qry_len, flen_param, xdrop = (meta_i[0], meta_i[1],
+                                               meta_i[2], meta_i[3])
+        ref_num, qry_num, gap_char, gap_open, gap_extend = (
+            meta_f[0], meta_f[1], meta_f[2], meta_f[3], meta_f[4])
         denominator = ref_num * qry_num
         go_ends = gap_open      # alnType == 0: regular penalties at ends
         ge_ends = gap_extend
@@ -114,7 +123,7 @@ def _make_pair_fn(PADLEN: int, FLEN: int, P: int, MARKER: int,
         neg_inf = -inf
 
         def tile_fn(carry):
-            (ref_idx, qry_idx, tile_no, out_buf, out_len, last_tile,
+            (ref_idx, qry_idx, tile_no, out_buf, out_len, cells, last_tile,
              err) = carry
             ref_rem = ref_len - ref_idx
             qry_rem = qry_len - qry_idx
@@ -151,8 +160,10 @@ def _make_pair_fn(PADLEN: int, FLEN: int, P: int, MARKER: int,
                 count = Uk - Lk + 1
                 band_dead = Lk >= Uk + 1
                 band_over = count > dflen
-                abort = band_dead | band_over
-                abort_err = jnp.where(band_dead, 1, 2)
+                band_win = count > FLEN
+                abort = band_dead | band_over | band_win
+                abort_err = jnp.where(band_dead, 1,
+                                      jnp.where(band_over, 2, 6))
                 store_ftr = k <= MARKER
                 k_ftr = jnp.clip(k, 0, MARKER)
 
@@ -184,14 +195,14 @@ def _make_pair_fn(PADLEN: int, FLEN: int, P: int, MARKER: int,
                     return lax.dynamic_slice(padded, (FLEN + c,), (FLEN,))
 
                 rev_start = FLEN + PADLEN - 1 - (ref_idx + jmax + lprime - Lk)
-                ref_rows = lax.dynamic_slice(ref_rev_pad, (rev_start, 0),
-                                             (FLEN, P))
+                ref_blk = lax.dynamic_slice(ref_pad, (rev_start, 0),
+                                            (FLEN, P8))
                 qry_start = FLEN + qry_idx + Lk
-                qry_rows = lax.dynamic_slice(qry_pad, (qry_start, 0), (FLEN, P))
-                pos_go_ref = lax.dynamic_slice(gor_rev, (rev_start,), (FLEN,))
-                pos_ge_ref = lax.dynamic_slice(ger_rev, (rev_start,), (FLEN,))
-                pos_go_qry = lax.dynamic_slice(goq, (qry_start,), (FLEN,))
-                pos_ge_qry = lax.dynamic_slice(geq, (qry_start,), (FLEN,))
+                qry_blk = lax.dynamic_slice(qry_pad, (qry_start, 0),
+                                            (FLEN, P8))
+                ref_rows, qry_rows = ref_blk[:, :P], qry_blk[:, :P]
+                pos_go_ref, pos_ge_ref = ref_blk[:, P8 - 2], ref_blk[:, P8 - 1]
+                pos_go_qry, pos_ge_qry = qry_blk[:, P8 - 2], qry_blk[:, P8 - 1]
 
                 diag_valid = (offset_diag >= 0) & \
                     (offset_diag <= U[k3p1] - L[k3p1])
@@ -316,6 +327,7 @@ def _make_pair_fn(PADLEN: int, FLEN: int, P: int, MARKER: int,
                 stop = converged & (max_score > conv_score)
                 return dict(k=k + 1, L=L, U=U, S=S, I=I, D=D, CS=CS, CI=CI,
                             CD=CD, tb=tb, ftr_len=ftr_len, ftr_low=ftr_low,
+                            cells=st["cells"] + jnp.where(abort, 0, count),
                             last_k=jnp.where(abort, st["last_k"], k),
                             prev_conv_s=prev_conv_s,
                             converged=converged, conv_value=conv_value,
@@ -328,7 +340,7 @@ def _make_pair_fn(PADLEN: int, FLEN: int, P: int, MARKER: int,
             st0 = dict(
                 k=jnp.int32(0), L=L0, U=U0, S=S0, I=I0, D=D0, CS=CS0,
                 CI=CI0, CD=CD0, tb=tb0, ftr_len=flen0, ftr_low=flow0,
-                last_k=jnp.int32(0), prev_conv_s=jnp.int32(-1),
+                cells=jnp.int32(0), last_k=jnp.int32(0), prev_conv_s=jnp.int32(-1),
                 converged=jnp.bool_(False), conv_value=jnp.int32(0),
                 conv_score=jnp.float32(0.0), max_score=jnp.float32(0.0),
                 msp=neg_inf, kerr=jnp.int32(0), stopped=jnp.bool_(False),
@@ -376,7 +388,10 @@ def _make_pair_fn(PADLEN: int, FLEN: int, P: int, MARKER: int,
                               qry_len - query_idx - 1, 0)
             fill2 = jnp.where(at_qry_end & jnp.logical_not(at_ref_end),
                               ref_len - reference_idx - 1, 0)
-            last_tile_new = last_tile_new | at_ref_end | at_qry_end
+            last_tile_new = (last_tile_new
+                             | (at_ref_end & (query_idx < qry_len - 1))
+                             | (at_qry_end & (reference_idx < ref_len - 1))
+                             | (at_ref_end & at_qry_end))
 
             # sequential traceback into a scratch segment
             def tb_cond(s):
@@ -444,7 +459,7 @@ def _make_pair_fn(PADLEN: int, FLEN: int, P: int, MARKER: int,
 
             # on error: report; output is discarded by the host
             return (reference_idx, query_idx, tile_no + 1, out_buf, cur,
-                    last_tile_new, tile_err)
+                    cells + st["cells"], last_tile_new, tile_err)
 
         def cond(c):
             last_tile, err = c[-2], c[-1]
@@ -452,12 +467,27 @@ def _make_pair_fn(PADLEN: int, FLEN: int, P: int, MARKER: int,
 
         carry0 = (jnp.int32(0), jnp.int32(0), jnp.int32(0),
                   jnp.zeros(MAXALN, dtype=jnp.int8), jnp.int32(0),
-                  jnp.bool_(False), jnp.int32(0))
+                  jnp.int32(0), jnp.bool_(False), jnp.int32(0))
         carry = lax.while_loop(cond, tile_fn, carry0)
-        _, _, _, out_buf, out_len, _, err = carry
-        return out_buf, out_len, err
+        _, _, _, out_buf, out_len, cells, _, err = carry
+        return out_buf, jnp.stack([out_len, err, cells])
 
     return align_pair
+
+
+def p8_of(p: int) -> int:
+    """Packed row width: P profile columns + 2 gap columns, rounded to 8."""
+    return (p + 2 + 7) // 8 * 8
+
+
+def maxaln(padlen: int) -> int:
+    return 2 * padlen + 8
+
+
+def make_batched(padlen: int, flen: int, p: int, marker: int,
+                 matrix: np.ndarray):
+    """vmapped fn(ref, qry, meta_i, meta_f) -> (paths, tail) (unjitted)."""
+    return jax.vmap(_make_pair_fn(padlen, flen, p, marker, matrix))
 
 
 @functools.lru_cache(maxsize=64)
@@ -465,31 +495,38 @@ def get_batch_kernel(padlen: int, flen: int, p: int, marker: int,
                      matrix_bytes: bytes, msize: int):
     """Jitted vmapped batch kernel for one static shape configuration."""
     matrix = np.frombuffer(matrix_bytes, dtype=np.float32).reshape(msize, msize)
-    pair_fn = _make_pair_fn(padlen, flen, p, marker, matrix)
-    batched = jax.vmap(
-        pair_fn,
-        in_axes=(0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0, None, None))
-    return jax.jit(batched)
+    return jax.jit(make_batched(padlen, flen, p, marker, matrix))
+
+
+def pack_pair_into(ref: np.ndarray, qry: np.ndarray,
+                   freq_ref: np.ndarray, freq_qry: np.ndarray,
+                   gap_op: Tuple[np.ndarray, np.ndarray],
+                   gap_ex: Tuple[np.ndarray, np.ndarray],
+                   padlen: int, off: int) -> None:
+    """Pack one pair into preallocated zeroed [TOT, P8] rows (module
+    docstring): reversed reference ending at off + padlen, query from
+    off, gap open/extend in the last two columns."""
+    p = freq_ref.shape[1]
+    p8 = ref.shape[1]
+    rl, ql = freq_ref.shape[0], freq_qry.shape[0]
+    r0, r1 = off + padlen - rl, off + padlen
+    ref[r0:r1, :p] = freq_ref[::-1]
+    ref[r0:r1, p8 - 2] = gap_op[0][::-1]
+    ref[r0:r1, p8 - 1] = gap_ex[0][::-1]
+    qry[off:off + ql, :p] = freq_qry
+    qry[off:off + ql, p8 - 2] = gap_op[1]
+    qry[off:off + ql, p8 - 1] = gap_ex[1]
 
 
 def pack_pair(freq_ref: np.ndarray, freq_qry: np.ndarray,
               gap_op: Tuple[np.ndarray, np.ndarray],
               gap_ex: Tuple[np.ndarray, np.ndarray],
-              padlen: int, flen: int) -> Tuple[np.ndarray, ...]:
-    """Host-side packing: pad + reverse so the kernel's reads are slices."""
-    p = freq_ref.shape[1]
+              padlen: int, flen: int) -> Tuple[np.ndarray, np.ndarray]:
+    """One pair's (ref, qry) rows in this kernel's padding (off = flen)."""
     tot = flen + padlen + flen
-    ref_rev = np.zeros((tot, p), dtype=np.float32)
-    qry = np.zeros((tot, p), dtype=np.float32)
-    rl, ql = freq_ref.shape[0], freq_qry.shape[0]
-    ref_rev[flen + padlen - rl:flen + padlen] = freq_ref[::-1]
-    qry[flen:flen + ql] = freq_qry
-    gor = np.zeros(tot, dtype=np.float32)
-    ger = np.zeros(tot, dtype=np.float32)
-    goq = np.zeros(tot, dtype=np.float32)
-    geq = np.zeros(tot, dtype=np.float32)
-    gor[flen + padlen - rl:flen + padlen] = gap_op[0][::-1]
-    ger[flen + padlen - rl:flen + padlen] = gap_ex[0][::-1]
-    goq[flen:flen + ql] = gap_op[1]
-    geq[flen:flen + ql] = gap_ex[1]
-    return ref_rev, qry, gor, goq, ger, geq
+    p8 = p8_of(freq_ref.shape[1])
+    ref = np.zeros((tot, p8), dtype=np.float32)
+    qry = np.zeros((tot, p8), dtype=np.float32)
+    pack_pair_into(ref, qry, freq_ref, freq_qry, gap_op, gap_ex, padlen,
+                   flen)
+    return ref, qry

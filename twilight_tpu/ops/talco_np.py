@@ -6,7 +6,7 @@ X-drop pruning, convergence-marker tiling, affine position-specific gaps,
 4-bit traceback. Float32 operation ordering matches the reference's
 TALCO_SIMD build (the binary our goldens come from), so alignment paths are
 bit-identical. Each anti-diagonal is vectorized; this module is the oracle
-the JAX/Pallas kernels are validated against, and the host fallback path.
+the JAX and CUDA kernels are validated against, and the host fallback path.
 
 Path codes: 0 = match (both advance), 1 = insertion (query advances),
 2 = deletion (reference advances).

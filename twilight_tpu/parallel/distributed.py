@@ -2,10 +2,10 @@
 
 The reference processes subtrees SEQUENTIALLY in one process
 (/root/reference/src/twilight-main.cpp:139-176) and merges through temp
-files + `cat` (io.cpp:465-488). On a TPU pod slice each host owns local
-chips, so the natural upgrade is: partition the guide tree once
+files + `cat` (io.cpp:465-488). With several hosts, each owning local
+devices, the natural upgrade is: partition the guide tree once
 (deterministic on every host), round-robin subtrees to hosts by leaf-count
-(largest first), run each host's subtrees on its local chips, then exchange
+(largest first), run each host's subtrees on its local devices, then exchange
 subtree-root profiles and lengths via a `jax.distributed` all-gather (or the
 shared-filesystem checkpoint files when no distributed runtime is up —
 the same .state.npz files --resume uses), and let host 0 run the merge pass
@@ -99,7 +99,7 @@ def exchange_subtree_states_collective(local: dict) -> dict:
     blob lengths are all-gathered first, then the zero-padded blobs. Every
     host gets every subtree's root state without touching the filesystem —
     the reference communicates only through temp files (io.cpp:347-354);
-    SURVEY §5's TPU plan is exactly this all-gather at partition
+    SURVEY §5's plan is exactly this all-gather at partition
     boundaries. The bulk subalignment FASTAs still live in the shared temp
     dir (they are the checkpoint/restart path and are only streamed once by
     host 0's transitivity writer).

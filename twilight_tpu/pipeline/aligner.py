@@ -4,7 +4,8 @@ Reference flow: /root/reference/src/alignment-cpu.cpp:36-183 — per pair:
 profile → consensus → gappy removal → PSGP → TALCO DP (retry ladder on
 band/x-drop errors) → splice gappy columns back → merge profiles → apply
 path. The DP itself is pluggable: the NumPy oracle (exact reference
-semantics) or the batched JAX/TPU kernel; everything around it is host code.
+semantics), the native host kernel, or the batched device kernel; everything
+around it is host code.
 """
 from __future__ import annotations
 
@@ -21,13 +22,14 @@ _PROFILE = bool(os.environ.get("TWILIGHT_PROFILE"))
 from ..config import MERGE_MSA, PLACE_WO_TREE, Options, Params
 from ..core.seqdb import SequenceDB
 from ..ops import talco_host, talco_np
+from ..ops.device_kernel import DEFERRED
 from . import helpers
 
 F32 = np.float32
 
 # Host DP seconds per profile column, measured once at startup on THIS
 # machine (one ~512-col pair through the active host kernel). Drives the
-# device-vs-host dispatch estimate — the TPU analogue of the reference's
+# device-vs-host dispatch estimate — the analogue of the reference's
 # "GPU only when pairs >= 3*cpuNum" rule (cuda/alignment-gpu.cu:12-16).
 # Fallback 15e-6 is the round-1 hand-measured figure for one Zen core.
 _host_s_per_col: Optional[float] = None
@@ -209,6 +211,10 @@ def _post_one(n_idx, pair, prep, meta, path, database: SequenceDB,
 
     if not low_r and not low_q:
         if aln_wo_gc is None:
+            if path is DEFERRED:
+                # the device kernel reached the host ladder's verdict
+                fallback_pairs.append(n_idx)
+                return
             if path is None and recheck_none:
                 # the host ladder is the authority on deferral: confirm a
                 # device/steal failure before deferring the pair
@@ -299,7 +305,7 @@ def align_pairs(pairs: List, database: SequenceDB, option: Options,
                      gappy_q=np.asarray(gappy[1], dtype=np.int64))
     t_prep = time.time() - t0
 
-    # batched device kernel (TPU) over all prepared pairs, if provided and
+    # batched device kernel over all prepared pairs, if provided and
     # the level is wide enough to amortize the launch round-trip
     t0 = time.time()
     use_device = False

@@ -4,8 +4,8 @@ maffttree/parttree/fasttree/rapidnj/...; this module provides the same
 capability without external dependencies).
 
 Pipeline: hashed k-mer count profiles -> pairwise distances (cosine-angle
-Mash-like metric; the Gram matrix is one big matmul, which runs on the TPU's
-MXU when JAX is available) -> neighbor joining (vectorized NumPy, O(n^3)) ->
+Mash-like metric; the Gram matrix is one big matmul, which runs on the GPU
+when JAX finds one) -> neighbor joining (vectorized NumPy, O(n^3)) ->
 Newick. For large n, a PartTree-style recursive decomposition keeps NJ
 instances small (seed sample -> NJ seeds -> assign members -> recurse).
 """

@@ -1,6 +1,6 @@
 """Workflow layer: iterative tree-estimation + alignment pipelines.
 
-TPU-native replacement for the reference's Snakemake workflow
+Self-contained replacement for the reference's Snakemake workflow
 (/root/reference/workflow/Snakefile:1-188, rules/twilight.smk): instead of
 shelling out to external tree tools (maffttree/parttree/fasttree/rapidnj/
 iqtree/raxml/mashtree), tree estimation is built in (twilight_tpu.trees —

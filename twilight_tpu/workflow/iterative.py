@@ -125,7 +125,7 @@ def main(argv=None) -> int:
     p.add_argument("-d", "--temp-dir")
     p.add_argument("--type", choices=["n", "p"])
     p.add_argument("--backend",
-                   choices=["auto", "tpu", "cpu", "native", "numpy"],
+                   choices=["auto", "gpu", "cpu", "native", "numpy"],
                    default="auto")
     p.add_argument("-k", "--keep-temp", action="store_true")
     p.add_argument("--tree-tool", default="auto",
@@ -173,13 +173,7 @@ def main(argv=None) -> int:
         print(f"ERROR: {e}", file=sys.stderr)
         rc = 1
     from ..ops import device_kernel
-    from ..trees import estimate
-    if not device_kernel.close_persistent() or estimate.orphans_alive():
-        # threads still blocked on abandoned device transfers: exit hard
-        # after flushing (interpreter teardown would SIGABRT)
-        sys.stdout.flush()
-        sys.stderr.flush()
-        os._exit(rc)
+    device_kernel.close_persistent()
     return rc
 
 
